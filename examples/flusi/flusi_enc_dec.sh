@@ -21,7 +21,7 @@ with h5py.File("ux_00010.h5", "w") as f:
 print("wrote ux_00010.h5")
 EOF
 
-python -m waverange_tpu.cli.flusi_enc ux_00010.h5 compressed_00010.h5 0 1e-3
-python -m waverange_tpu.cli.flusi_dec compressed_00010.h5 decompressed_00010.h5 0 2
+python -m waverange.cli.flusi_enc ux_00010.h5 compressed_00010.h5 0 1e-3
+python -m waverange.cli.flusi_dec compressed_00010.h5 decompressed_00010.h5 0 2
 ls -l ux_00010.h5 compressed_00010.h5 decompressed_00010.h5
 echo "round trip complete"

@@ -2,7 +2,7 @@
 ! (the analogue of the reference's examples/fortran/example_fort.f90:
 ! setup_wr_f -> encoding_wrap_f -> decoding_wrap_f, self-checked).
 !
-! Build: python -m waverange_tpu.native.libwaverange
+! Build: python -m waverange.native.libwaverange
 !        gfortran -O2 -o example_wr example_wr.f90 \
 !            -L../../build/lib -lwaverange -Wl,-rpath,<abs path to build/lib>
 !

@@ -39,8 +39,8 @@ cat > inmeta <<'EOF'
 /
 EOF
 
-python -m waverange_tpu.cli.wrenc
-python -m waverange_tpu.cli.wrdec data.wrb data.wrh datarec.bin 0 0
+python -m waverange.cli.wrenc
+python -m waverange.cli.wrdec data.wrb data.wrh datarec.bin 0 0
 ls -l data.bin data.wrb datarec.bin
 rm -f inmeta
 echo "round trip complete"

@@ -2,7 +2,7 @@
    reference's examples/fortran/example_fort.f90): synthesize a 64^3
    field, encode at tolrel, decode, verify the Linf error bound.
 
-   Build:  python -m waverange_tpu.native.libwaverange
+   Build:  python -m waverange.native.libwaverange
            gcc -O2 -o example example.c -L../../build/lib -lwaverange \
                -Wl,-rpath,$PWD/../../build/lib -lm
 */

@@ -31,8 +31,8 @@ print("wrote rst.p_0000..0003 + rst.nmlst")
 EOF
 
 for procid in 0 1 2 3; do
-  python -m waverange_tpu.cli.mssg_enc rst .enc 2 2 1 1e-7 $procid
-  python -m waverange_tpu.cli.mssg_dec rst .enc rstrec 2 2 1 $procid
+  python -m waverange.cli.mssg_enc rst .enc 2 2 1 1e-7 $procid
+  python -m waverange.cli.mssg_dec rst .enc rstrec 2 2 1 $procid
 done
 ls -l rst_f*.enc rstrec.p_*
 echo "round trip complete"

@@ -90,7 +90,7 @@ def test_config3_mssg_divided_multiproc(oracle, tmp_path):
     """configs[3]: MSSG backup-divided across 4 PROCIDs at 128^2x64 —
     run through the sharded mesh machinery as well as the CLI."""
     from test_mssg import make_backup, run_oracle, run_ours, cmp_file
-    from waverange_tpu.cli import mssg_enc, mssg_dec
+    from waverange.cli import mssg_enc, mssg_dec
     for d in ("o", "m"):
         dd = tmp_path / d
         dd.mkdir()
@@ -152,15 +152,14 @@ def test_config2_flusi_512cubed_velocity(oracle, tmp_path):
 def test_config4_podslice_standin_divided_1024(oracle, tmp_path):
     """configs[4] single-host stand-in: a 1024-deep field encoded in
     divided z-slabs across the virtual 8-device mesh, byte-identical to
-    per-slab reference encodes (the full 1024^3 throughput row is
-    bench.py's default headline; the pod-slice scaling story is
-    SCALING.md + dryrun_multichip)."""
-    from waverange_tpu.parallel.mesh import (encode_field_divided,
-                                             decode_field_divided)
+    per-slab reference encodes (the four-card sharded path is
+    chip_smoke.py --four-cards and dryrun_multichip)."""
+    from waverange.parallel.mesh import (encode_field_divided,
+                                         decode_field_divided)
     nz, ny, nx = 1024, 64, 64
     fld = smooth_field((nz, ny, nx)) \
         + 1e-3 * np.random.default_rng(9).standard_normal((nz, ny, nx))
-    from waverange_tpu.core import codec
+    from waverange.core import codec
     encs = encode_field_divided(fld, 1e-8, n_blocks=8)
     # each slab's stream equals the single-device jax encode of that
     # slab (sharded == unsharded, byte level), and the streams decode
@@ -169,7 +168,7 @@ def test_config4_podslice_standin_divided_1024(oracle, tmp_path):
     # itself holds except for the documented XLA-FMA deviation at
     # round-off-limited layers — codec.py backend notes.)
     slabs = np.split(fld, 8, axis=0)
-    from waverange_tpu import native as wn
+    from waverange import native as wn
     for k, e in enumerate(encs):
         single = codec.encode_field(np.ascontiguousarray(slabs[k]),
                                     1e-8, backend="jax")

@@ -7,7 +7,7 @@ import subprocess
 
 import numpy as np
 
-from waverange_tpu.native.build import ensure_built
+from waverange.native.build import ensure_built
 
 from conftest import ORACLE, smooth_field
 from test_generic_cli import make_c_file
@@ -34,14 +34,14 @@ def test_stdin_decode_matches_oracle(oracle, tmp_path):
     env = dict(os.environ)
     env["PYTHONPATH"] = (str(ORACLE.parent.parent) + ":"
                          + env.get("PYTHONPATH", ""))
-    subprocess.run([sys.executable, "-m", "waverange_tpu.cli.wrenc",
+    subprocess.run([sys.executable, "-m", "waverange.cli.wrenc",
                     *args], cwd=tmp_path / "m", check=True,
                    capture_output=True, env=env)
     outmeta = "data.wrb\ndata.wrh\ndatarec.bin\n2\n0\n"
     subprocess.run([str(ORACLE / "wrdec")], cwd=tmp_path / "o",
                    input=outmeta, text=True, check=True,
                    capture_output=True)
-    subprocess.run([sys.executable, "-m", "waverange_tpu.cli.wrdec"],
+    subprocess.run([sys.executable, "-m", "waverange.cli.wrdec"],
                    cwd=tmp_path / "m", input=outmeta, text=True,
                    check=True, capture_output=True, env=env)
     assert (tmp_path / "m" / "datarec.bin").read_bytes() == \
@@ -53,7 +53,7 @@ def test_header_field_mismatch_raises(tmp_path):
     (reference throws std::exception — gen_aux.cpp:567)."""
     import shutil
     from pathlib import Path
-    from waverange_tpu.io.generic import decode_generic_file
+    from waverange.io.generic import decode_generic_file
     G = Path(__file__).parent / "golden"
     wrh = (G / "data.wrh").read_text()
     # corrupt the per-field id line (first line after the ' -----' marker)
@@ -72,7 +72,7 @@ def test_header_field_mismatch_raises(tmp_path):
 def test_truncated_payload_raises(tmp_path):
     import shutil
     from pathlib import Path
-    from waverange_tpu.io.generic import decode_generic_file
+    from waverange.io.generic import decode_generic_file
     G = Path(__file__).parent / "golden"
     shutil.copy(G / "data.wrh", tmp_path / "data.wrh")
     (tmp_path / "data.wrb").write_bytes(
@@ -123,7 +123,7 @@ def test_mssg_enc_config_modes_vs_oracle(oracle, tmp_path, mode):
     stdin = MSSG_STDIN if mode == "stdin" else ""
     subprocess.run([str(ORACLE / "wrmssgenc")], cwd=tmp_path / "o",
                    input=stdin, text=True, check=True, capture_output=True)
-    subprocess.run([sys.executable, "-m", "waverange_tpu.cli.mssg_enc"],
+    subprocess.run([sys.executable, "-m", "waverange.cli.mssg_enc"],
                    cwd=tmp_path / "m", input=stdin, text=True, check=True,
                    capture_output=True, env=env)
     # stdin mode leaves the extension EMPTY (getline clobbers the .enc
@@ -139,7 +139,7 @@ def test_mssg_enc_config_modes_vs_oracle(oracle, tmp_path, mode):
         dargs = ["ocean", "", "oceanrec", "0", "1", "1", "0"]
         subprocess.run([str(ORACLE / "wrmssgdec"), *dargs],
                        cwd=tmp_path / "o", check=True, capture_output=True)
-        subprocess.run([sys.executable, "-m", "waverange_tpu.cli.mssg_dec",
+        subprocess.run([sys.executable, "-m", "waverange.cli.mssg_dec",
                         *dargs], cwd=tmp_path / "m", check=True,
                        capture_output=True, env=env)
     else:
@@ -151,7 +151,7 @@ def test_mssg_enc_config_modes_vs_oracle(oracle, tmp_path, mode):
         subprocess.run([str(ORACLE / "wrmssgdec")], cwd=tmp_path / "o",
                        input=dec_stdin, text=True, check=True,
                        capture_output=True)
-        subprocess.run([sys.executable, "-m", "waverange_tpu.cli.mssg_dec"],
+        subprocess.run([sys.executable, "-m", "waverange.cli.mssg_dec"],
                        cwd=tmp_path / "m", input=dec_stdin, text=True,
                        check=True, capture_output=True, env=env)
     for f in ("oceanrec.grd", "oceanrec.ctl"):
@@ -191,7 +191,7 @@ def test_flusi_enc_config_modes_vs_oracle(tmp_path, mode):
     stdin = FLUSI_STDIN if mode == "stdin" else ""
     subprocess.run([enc_exe], cwd=tmp_path / "o", input=stdin, text=True,
                    check=True, capture_output=True)
-    subprocess.run([sys.executable, "-m", "waverange_tpu.cli.flusi_enc"],
+    subprocess.run([sys.executable, "-m", "waverange.cli.flusi_enc"],
                    cwd=tmp_path / "m", input=stdin, text=True, check=True,
                    capture_output=True, env=env)
     _h5_equal(tmp_path / "o" / "enc.h5", tmp_path / "m" / "enc.h5",
@@ -200,7 +200,7 @@ def test_flusi_enc_config_modes_vs_oracle(tmp_path, mode):
     dec_stdin = "enc.h5\ndec.h5\n0\n\n"   # empty precision -> double
     subprocess.run([dec_exe], cwd=tmp_path / "o", input=dec_stdin,
                    text=True, check=True, capture_output=True)
-    subprocess.run([sys.executable, "-m", "waverange_tpu.cli.flusi_dec"],
+    subprocess.run([sys.executable, "-m", "waverange.cli.flusi_dec"],
                    cwd=tmp_path / "m", input=dec_stdin, text=True,
                    check=True, capture_output=True, env=env)
     _h5_equal(tmp_path / "o" / "dec.h5", tmp_path / "m" / "dec.h5",

@@ -4,7 +4,7 @@ round-off-limited tolerances; doc/cfdproc2017.pdf p.2 Fig.3)."""
 import numpy as np
 import pytest
 
-from waverange_tpu.core import codec
+from waverange.core import codec
 from conftest import smooth_field
 
 
@@ -25,9 +25,8 @@ def test_error_control_sweep_jax_backend(tol, entropy):
     """Device-path mirror of the sweep (VERDICT r1 item 4): the jax
     backend must satisfy the same error contract at every tolerance.
     On the CPU backend x64 is true IEEE f64, so this pins the XLA
-    pipeline's contract exactly; the TPU-emulated-f64 envelope is
-    measured separately on hardware (bench.py WR_BENCH_VERIFY, floor
-    ~1.3e-13 relative — PERFORMANCE.md)."""
+    pipeline's contract exactly; chip_smoke.py measures the GPU's
+    envelope (codec.DEVICE_F64_REL_FLOOR, PERF.md)."""
     a = smooth_field((40, 36, 32))
     a = a + 0.02 * np.abs(a).max() * \
         np.random.default_rng(7).standard_normal(a.shape)
@@ -49,8 +48,8 @@ def test_monotone_size_vs_tolerance():
 def test_f32_native_pipeline():
     # opt-in f32 host pipeline: tolerance-exact at f32 resolution, stream
     # decodable by the f64 decoder (format-identical, f64 metadata)
-    from waverange_tpu import native as wn
-    from waverange_tpu.core import codec
+    from waverange import native as wn
+    from waverange.core import codec
     rng = np.random.default_rng(9)
     a = (np.cumsum(rng.standard_normal((32, 40, 48)), axis=2) / 4
          ).astype(np.float32)
@@ -70,7 +69,7 @@ def test_f32_native_pipeline():
 
 
 def test_f32_native_with_turbo():
-    from waverange_tpu import native as wn
+    from waverange import native as wn
     rng = np.random.default_rng(10)
     a = (np.cumsum(rng.standard_normal((24, 24, 24)), axis=1) / 4
          ).astype(np.float32)
@@ -87,7 +86,7 @@ def test_f32_local_cutoff_parity(wt):
     reference contract wrappers.cpp:339-379 / lcl_prec). With wtflag=0
     the per-block mask genuinely fires; with wtflag=1 the ind_p2w_3d
     level-latch quirk makes it uniform at the min cutoff."""
-    from waverange_tpu import native as wn
+    from waverange import native as wn
     a64 = smooth_field((16, 12, 8))
     a32 = a64.astype(np.float32)
     mx, my, mz = 2, 2, 2

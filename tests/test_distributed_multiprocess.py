@@ -20,7 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from waverange_tpu import native as wn
+from waverange import native as wn
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -39,8 +39,8 @@ WORKER = textwrap.dedent("""
 
     import numpy as np
     sys.path.insert(0, sys.argv[5])  # repo root
-    from waverange_tpu import native as wn
-    from waverange_tpu.parallel.distributed import gather_streams_ordered
+    from waverange import native as wn
+    from waverange.parallel.distributed import gather_streams_ordered
 
     # 6 fields, deterministic; this process encodes ids [pid::nproc]
     # (interleaved so the ordered gather must actually reorder).
@@ -84,8 +84,8 @@ WORKER_TRANSFORM = textwrap.dedent("""
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     from jax.experimental import multihost_utils
     sys.path.insert(0, sys.argv[5])
-    from waverange_tpu.parallel.mesh import (distributed_encode_step,
-                                             distributed_decode_step)
+    from waverange.parallel.mesh import (distributed_encode_step,
+                                         distributed_decode_step)
 
     shape = (32, 16, 16)   # nz % (2*8) == 0, even through 4 levels
     fld = np.fromfunction(
@@ -205,8 +205,8 @@ def test_two_process_distributed_transform(tmp_path):
 
     # single-process oracle (this pytest process, CPU backend)
     import jax.numpy as jnp
-    from waverange_tpu.core import codec
-    from waverange_tpu.ops.quant import decode_step
+    from waverange.core import codec
+    from waverange.ops.quant import decode_step
 
     shape = (32, 16, 16)
     fld = np.fromfunction(

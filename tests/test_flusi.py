@@ -18,9 +18,9 @@ import pytest
 
 h5py = pytest.importorskip("h5py")
 
-from waverange_tpu.core import codec
-from waverange_tpu.io.flusi import (BACKUP_DATASETS, encode_flusi_file,
-                                    decode_flusi_file)
+from waverange.core import codec
+from waverange.io.flusi import (BACKUP_DATASETS, encode_flusi_file,
+                                decode_flusi_file)
 
 from conftest import smooth_field
 
@@ -178,7 +178,7 @@ def _ours(mod, *args):
     env = {**os.environ, "PYTHONPATH": str(
         __import__("pathlib").Path(__file__).resolve().parent.parent)}
     r = subprocess.run(
-        [sys.executable, "-m", f"waverange_tpu.cli.{mod}", *map(str, args)],
+        [sys.executable, "-m", f"waverange.cli.{mod}", *map(str, args)],
         capture_output=True, text=True, env=env)
     assert r.returncode == 0, (mod, r.stdout[-300:], r.stderr[-600:])
 

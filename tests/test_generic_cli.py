@@ -11,7 +11,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from waverange_tpu.cli import wrenc, wrdec
+from waverange.cli import wrenc, wrdec
 
 from conftest import ORACLE, smooth_field
 

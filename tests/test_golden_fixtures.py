@@ -19,7 +19,7 @@ REPO = Path(__file__).resolve().parent.parent
 
 
 def test_encoder_matches_golden(tmp_path):
-    from waverange_tpu.cli import wrenc
+    from waverange.cli import wrenc
     shutil.copy(GOLDEN / "data.bin", tmp_path / "data.bin")
     old = os.getcwd()
     os.chdir(tmp_path)
@@ -35,7 +35,7 @@ def test_encoder_matches_golden(tmp_path):
 
 
 def test_decoder_matches_golden(tmp_path):
-    from waverange_tpu.cli import wrdec
+    from waverange.cli import wrdec
     for f in ("data.wrb", "data.wrh"):
         shutil.copy(GOLDEN / f, tmp_path / f)
     old = os.getcwd()
@@ -73,7 +73,7 @@ def test_vendored_flusi_golden_decode():
     bit-identical to the vendored reference decode, and re-encoding must
     reproduce the vendored encoded payload byte-for-byte."""
     h5py = pytest.importorskip("h5py")
-    from waverange_tpu.io.flusi import decode_flusi_file, encode_flusi_file
+    from waverange.io.flusi import decode_flusi_file, encode_flusi_file
     g = Path(__file__).parent / "golden"
     src = g / "flusi_ux_golden.enc.h5"
     if not src.exists():

@@ -13,10 +13,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from waverange_tpu import native as wn
-from waverange_tpu.core import codec
-from waverange_tpu.ops import cdf97_3d
-from waverange_tpu.ops.quant import quantize_layers, accumulate_layers
+from waverange import native as wn
+from waverange.core import codec
+from waverange.ops import cdf97_3d
+from waverange.ops.quant import quantize_layers, accumulate_layers
 
 from conftest import smooth_field
 
@@ -121,7 +121,7 @@ def test_wtflag0_jax_matches_native():
 
 
 def test_f32_native_precision_mode():
-    """TPU-first extension: precision="native" keeps f32 on device; the
+    """precision="native" keeps f32 on device; the
     stream stays decodable by the conformance decoder with f32-level
     error control."""
     a32 = smooth_field((32, 24, 16)).astype(np.float32)
@@ -132,3 +132,27 @@ def test_f32_native_precision_mode():
     # f32 path compresses at least as well as widened-f64 at this tol
     e64 = codec.encode_field(a32, 1e-4, backend="jax")
     assert abs(e.ntot_enc - e64.ntot_enc) < 0.1 * e64.ntot_enc + 1024
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 256), (4, 16, 512), (8, 16, 256),
+                                   (16, 32, 128), (4, 8, 128), (5, 9, 131)])
+def test_f32_device_path_roundtrip(shape):
+    """The f32 device path is plain XLA on every platform: its encode
+    and decode steps keep f32, and the stream round-trips within the
+    contract through both decoders."""
+    from waverange.ops.quant import decode_step, encode_step
+    a32 = smooth_field(shape, np.random.default_rng(3),
+                       noise=1e-3).astype(np.float32)
+    tol = 1e-5
+    out = encode_step(jnp.asarray(a32), tol)
+    nlay = int(out[3])
+    assert out[1].dtype == jnp.float32 and 1 <= nlay <= 8
+    back = decode_step(out[0][:nlay], out[1][:nlay], out[2][:nlay],
+                       shape=shape)
+    assert back.dtype == jnp.float32 and back.shape == shape
+    e = codec.encode_field(a32, tol, backend="jax", precision="native")
+    assert e.nlay == nlay
+    bound = 1.3 * tol * np.abs(a32).max()
+    for be in ("jax", "native"):
+        r = codec.decode_field(e, backend=be)
+        assert np.abs(r - a32.astype(np.float64)).max() <= bound, be

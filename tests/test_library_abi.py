@@ -12,7 +12,7 @@ from conftest import REPO, smooth_field
 
 @pytest.fixture(scope="module")
 def libdir():
-    from waverange_tpu.native.libwaverange import build_libwaverange
+    from waverange.native.libwaverange import build_libwaverange
     return build_libwaverange()
 
 
@@ -166,7 +166,7 @@ def test_fortran_example_abi(tmp_path):
     gfortran = shutil.which("gfortran") or shutil.which("flang")
     if gfortran is None:
         pytest.skip("no Fortran compiler on this host")
-    from waverange_tpu.native.libwaverange import build_libwaverange
+    from waverange.native.libwaverange import build_libwaverange
     libdir = build_libwaverange(tmp_path / "lib")
     src = REPO / "examples" / "fortran" / "example_wr.f90"
     exe = tmp_path / "example_wr"

@@ -10,7 +10,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from waverange_tpu.cli import mssg_enc, mssg_dec
+from waverange.cli import mssg_enc, mssg_dec
 
 from conftest import ORACLE, smooth_field
 
@@ -160,7 +160,7 @@ def test_backup_divided_vs_oracle(oracle, tmp_path):
 
 def test_yinyang_grid_arithmetic(tmp_path):
     """npg/i_over/j_over → nx/ny per the hardcoded MSSG formulas."""
-    from waverange_tpu.io.mssg import read_control_file
+    from waverange.io.mssg import read_control_file
     (tmp_path / "g.nmlst").write_text(
         "&gridparam\n npg = 12, i_over = 2, j_over = 1, nr = 4,\n/\n"
         "&procparam\n nproc = 4, dim_size = 2,\n/\n"

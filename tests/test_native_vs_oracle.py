@@ -8,7 +8,7 @@ vectorization-dependent FMA choices that differ between any two builds).
 import numpy as np
 import pytest
 
-from waverange_tpu import native as wn
+from waverange import native as wn
 
 from conftest import smooth_field
 

@@ -8,7 +8,7 @@ count, empty trailing block at exact multiples of 60000 symbols.
 import numpy as np
 import pytest
 
-from waverange_tpu import native as wn
+from waverange import native as wn
 
 
 @pytest.mark.parametrize("n", [1, 2, 5, 255, 1000, 59999, 60000, 60001,

@@ -12,7 +12,7 @@ import pytest
 
 from conftest import REPO
 
-SRC = REPO / "waverange_tpu" / "native" / "src" / "wr_native.cc"
+SRC = REPO / "waverange" / "native" / "src" / "wr_native.cc"
 DRIVER = REPO / "tests" / "helpers" / "tsan_driver.cc"
 
 

@@ -71,7 +71,7 @@ def test_our_decoder_reads_stock_streams(oracle, stock):
     """A stock-encoded stream through our (ISO-bit-exact) decoder equals
     the stock build's own decode up to the accumulate-contraction ulps,
     and stays within the error contract."""
-    from waverange_tpu import native as wn
+    from waverange import native as wn
     a = smooth_field((24, 40, 16))
     amax = np.abs(a).max()
     for tol in (1e-6, 1e-14):

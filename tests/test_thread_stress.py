@@ -14,7 +14,7 @@ import os
 import numpy as np
 import pytest
 
-from waverange_tpu import native as wn
+from waverange import native as wn
 
 from conftest import smooth_field
 

@@ -11,8 +11,8 @@ import sys
 import numpy as np
 import pytest
 
-from waverange_tpu import native as wn
-from waverange_tpu.core import codec
+from waverange import native as wn
+from waverange.core import codec
 
 
 @pytest.mark.parametrize("n", [1, 7, 8, 9, 65535, 65536, 65537, 131072,
@@ -74,8 +74,8 @@ def test_unknown_version_rejected():
 
 
 def test_generic_file_turbo_roundtrip(tmp_path):
-    from waverange_tpu.io.generic import (FieldSpec, decode_generic_file,
-                                          encode_generic_file)
+    from waverange.io.generic import (FieldSpec, decode_generic_file,
+                                      encode_generic_file)
     a = np.sin(np.arange(17 * 18 * 19) / 55.0).reshape(19, 18, 17) * 3.0
     raw = tmp_path / "in.raw"
     a.astype("<f8").tofile(raw)
@@ -99,13 +99,13 @@ def test_cli_env_optin(tmp_path):
     env = dict(os.environ, WR_CODER="rans",
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    args = [sys.executable, "-m", "waverange_tpu.cli.wrenc", str(raw),
+    args = [sys.executable, "-m", "waverange.cli.wrenc", str(raw),
             str(tmp_path / "c.wrb"), str(tmp_path / "c.wrh"), "2", "0",
             "1", "2", "16", "16", "16", "1e-8"]
     subprocess.run(args, check=True, env=env, cwd=tmp_path,
                    capture_output=True)
     assert " Coder version: 31600" in (tmp_path / "c.wrh").read_text()
-    args = [sys.executable, "-m", "waverange_tpu.cli.wrdec",
+    args = [sys.executable, "-m", "waverange.cli.wrdec",
             str(tmp_path / "c.wrb"), str(tmp_path / "c.wrh"),
             str(tmp_path / "c.out"), "2", "0"]
     subprocess.run(args, check=True, cwd=tmp_path, env=env,
@@ -130,21 +130,21 @@ def test_cli_env_backend_exact64(tmp_path):
                JAX_COMPILATION_CACHE_DIR=cache,
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH",
                                                              ""))
-    args = [sys.executable, "-m", "waverange_tpu.cli.wrenc", str(raw),
+    args = [sys.executable, "-m", "waverange.cli.wrenc", str(raw),
             str(tmp_path / "x.wrb"), str(tmp_path / "x.wrh"), "2", "0",
             "1", "2", "16", "16", "16", "1e-8"]
     subprocess.run(args, check=True, env=env, cwd=tmp_path,
                    capture_output=True)
     # byte-identical to the native host pipeline with the same coder
     env2 = dict(env, WR_BACKEND="native")
-    args2 = [sys.executable, "-m", "waverange_tpu.cli.wrenc", str(raw),
+    args2 = [sys.executable, "-m", "waverange.cli.wrenc", str(raw),
              str(tmp_path / "y.wrb"), str(tmp_path / "y.wrh"), "2", "0",
              "1", "2", "16", "16", "16", "1e-8"]
     subprocess.run(args2, check=True, env=env2, cwd=tmp_path,
                    capture_output=True)
     assert (tmp_path / "x.wrb").read_bytes() == \
         (tmp_path / "y.wrb").read_bytes()
-    args = [sys.executable, "-m", "waverange_tpu.cli.wrdec",
+    args = [sys.executable, "-m", "waverange.cli.wrdec",
             str(tmp_path / "x.wrb"), str(tmp_path / "x.wrh"),
             str(tmp_path / "x.out"), "2", "0"]
     subprocess.run(args, check=True, cwd=tmp_path, env=env,
@@ -160,7 +160,7 @@ def test_simd_streams_byte_identical_to_scalar():
     cached per process."""
     prog = r"""
 import numpy as np, hashlib, sys
-from waverange_tpu import native as wn
+from waverange import native as wn
 rng = np.random.default_rng(123)
 hashes = []
 for n in [8, 63, 65535, 65536, 65537, 200001]:
